@@ -5,7 +5,7 @@ PY ?= python
 DECK ?= 128x128
 OUT ?= out
 
-.PHONY: all test test-all tpu-smoke check run bench bench-all native clean profile
+.PHONY: all test test-all test-gpu check run bench native clean profile
 
 all: native
 
@@ -14,21 +14,17 @@ native:
 	mkdir -p native/build
 	g++ -O2 -std=c++17 -shared -fPIC native/io_native.cpp -o native/build/libtpulbm_io.so
 
-# Default gate (<10 min on this 1-core host): everything except the heavy
-# interpret-mode kernel differentials, which conftest auto-marks `slow`
-# (cheap per-kernel `smoke` differentials stay in). Full matrix: test-all.
+# Default gate on the CPU (8 virtual devices): everything except the
+# `slow` tests (multi-process, 4096^2 grids). Full matrix: test-all.
 test:
-	$(PY) -m pytest tests/ -q -m "not slow"
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/ -q -m "not slow"
 
 test-all:
-	$(PY) -m pytest tests/ -q
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/ -q
 
-# Hardware gate: one chunk of EVERY single-device kernel tier compiled and
-# run on the real TPU, tolerance-gated against the jnp oracle (interpret
-# mode provably diverges from Mosaic — commit 71a72e0). ~40 s warm-cache,
-# ~2 min with cold compiles in a healthy window.
-tpu-smoke:
-	$(PY) scripts/tpu_smoke.py
+# Tests that need an NVIDIA GPU (marker `gpu`); run on a machine with one.
+test-gpu:
+	JAX_PLATFORMS=cuda $(PY) -m pytest tests/ -q -m gpu
 
 run:
 	$(PY) -m tpulbm data/input_$(DECK).params data/obstacles_$(DECK).dat --out-dir $(OUT)
@@ -61,18 +57,13 @@ check: run
 	fi
 
 bench:
-	$(PY) bench.py
+	$(PY) bench.py --grid $(DECK)
 
-# Regenerate the committed per-deck bench artifacts (bench_artifacts/*.json,
-# wall + device + window tag + commit) that the README/BENCHMARKS tables cite.
-bench-all:
-	bash scripts/bench_all.sh
-
-# Capture an xprof trace of the step loop — the `make profile` equivalent
+# Capture a jax.profiler trace of the step loop — the `make profile` equivalent
 # (reference Makefile:30-31 + MPI_Pcontrol brackets).
 profile:
 	$(PY) -m tpulbm data/input_$(DECK).params data/obstacles_$(DECK).dat \
 	  --out-dir $(OUT) --profile-dir $(OUT)/trace --no-output
 
 clean:
-	rm -rf $(OUT) native/build __pycache__ tpulbm/**/__pycache__ .pytest_cache
+	rm -rf $(OUT) native/build __pycache__ tpulbm/**/__pycache__ .pytest_cache .jax_cache

@@ -2,9 +2,9 @@
 # Multi-host launcher — the counterpart of the reference's PBS submit script
 # (mpi_submit:1-64) and environment file (env.sh:4-9).
 #
-# On a managed Cloud TPU pod slice, run the SAME command on every host (e.g.
-# `gcloud compute tpus tpu-vm ssh $TPU --worker=all --command=...`);
-# jax.distributed auto-detects the coordinator and process ids:
+# On a cluster whose scheduler jax.distributed recognises (e.g. SLURM), run
+# the SAME command on every host; jax.distributed detects the coordinator and
+# process ids:
 #
 #   scripts/launch_multihost.sh data/input_4096x4096.params \
 #                               data/obstacles_4096x4096.dat --out-dir out
@@ -14,7 +14,7 @@
 #   TPULBM_COORDINATOR=host0:9876 TPULBM_NUM_PROCS=4 TPULBM_PROC_ID=$i \
 #       scripts/launch_multihost.sh ...
 #
-# A local smoke mode (no TPUs needed) runs N processes x M virtual CPU
+# A local smoke mode (no accelerator needed) runs N processes x M virtual CPU
 # devices on one machine — the same path the multi-process test uses:
 #
 #   scripts/launch_multihost.sh --local-smoke 2x4 data/input_128x128.params \

@@ -30,7 +30,7 @@ def test_device_count_invariance(params_128, oracle, n_dev):
     params, mask = params_128
     f_ref, av_ref = oracle
     mesh = get_mesh(n_devices=n_dev)
-    runner = make_runner(params, N_STEPS, mesh=mesh, backend="jnp")
+    runner = make_runner(params, N_STEPS, mesh=mesh)
     f, av = runner(initial_state(params), jnp.asarray(mask))
     assert np.array_equal(np.asarray(f), f_ref), "state must be bitwise equal"
     np.testing.assert_allclose(np.asarray(av), av_ref, rtol=2e-5)
@@ -45,8 +45,7 @@ def test_halo_ring_periodicity(params_128):
     f0[2, -1, :] *= 2.0  # extra north-moving mass on the last row
     outs = []
     for n_dev in (1, 8):
-        runner = make_runner(params, 3, mesh=get_mesh(n_devices=n_dev),
-                             backend="jnp")
+        runner = make_runner(params, 3, mesh=get_mesh(n_devices=n_dev))
         f, _ = runner(jnp.asarray(f0), jnp.asarray(mask))
         outs.append(np.asarray(f))
     assert np.array_equal(outs[0], outs[1])

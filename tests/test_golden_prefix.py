@@ -16,8 +16,10 @@ from tpulbm.dist.runner import make_runner
 from tpulbm.io.obstacles import read_obstacles
 from tpulbm.io.params_file import read_params
 
-DATA = "/root/repo/data"
-GOLDEN = "/root/repo/tests/goldens"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+DATA = os.path.join(REPO, "data")
+GOLDEN = os.path.join(REPO, "tests", "goldens")
 
 
 @pytest.mark.parametrize("deck,n_dev", [
@@ -32,8 +34,7 @@ def test_golden_prefix(deck, n_dev):
         os.path.join(DATA, f"obstacles_{deck}.dat"), params.nx, params.ny
     )
     params = params.with_free_cells(num_free)
-    runner = make_runner(params, n, mesh=get_mesh(n_devices=n_dev),
-                         backend="jnp")
+    runner = make_runner(params, n, mesh=get_mesh(n_devices=n_dev))
     _, av = runner(initial_state(params), jnp.asarray(mask))
     golden = np.loadtxt(
         os.path.join(GOLDEN, f"{deck}.av_vels.dat"), usecols=[1], max_rows=n

@@ -1,66 +1,41 @@
-"""Compile-level evidence for the in-kernel-RDMA halo design.
+"""Compile-level evidence for the halo-exchange schedule on the GPU.
 
-The reference proves its comm/compute overlap with measured ladders
-(report.odt opt-4 table); multi-chip hardware is unavailable here, so the
-strongest available analog is the lowered program itself (round-3 verdict
-item 6): for a 2-device mesh,
-
-- the ppermute runner's step loop must contain exactly the TWO designed
-  XLA collective-permutes per K-chunk (the up/down K-row halo slabs,
-  dist/runner._make_kstep_runner), and
-- the RDMA runners' step loops must contain ZERO XLA collectives — all
-  halo traffic rides inside the Mosaic kernel via make_async_remote_copy
-  (ops/pallas_kstep_rdma.py, ops/pallas_resident_rdma.py) — with the only
-  module-level collectives being the one-time obstacle-halo exchange before
-  the loop and the single deferred psum after it (the analog of the
-  reference's single post-loop MPI_Reduce, d2q9-bgk.c:396).
-
-The kernels are lowered GENUINELY (interpret=False -> tpu_custom_call) via
-cross-platform export for the TPU from this CPU-mesh process; this is the
-same lowering a real multi-chip run compiles. Incidentally this also pins
-that the RDMA kernels lower for hardware at all — their entry barrier +
-collective_id pairing is validated by Mosaic during this export (a latent
-lowering failure lived here through round 3, interpret mode never caught
-it).
+Several cards are not needed to see what a multi-card run compiles: the
+runners are exported for CUDA from this CPU-mesh process
+(``jax.export(..., platforms=["cuda"])``), which is the StableHLO a real
+multi-GPU run hands to XLA, whose collectives go to NCCL. For each layout
+the step loop must hold exactly the designed collective permutes and no
+reduction, and the whole program exactly the deferred psum(s) after the
+loop (the analog of the reference's single post-loop MPI_Reduce,
+d2q9-bgk.c:396). No hand-written kernel (custom call) may sit in the loop:
+the step is plain XLA.
 """
 
-import functools
 import re
 
+import jax.export as je
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from tpulbm.core.params import LBMParams
 from tpulbm.core.state import initial_state
-from tpulbm.dist.mesh import get_mesh
-from tpulbm.dist import runner as R
+from tpulbm.dist.mesh import get_mesh, get_mesh_2d
+from tpulbm.dist.runner import make_runner
 from tpulbm.dist.sharding import shard_arrays
-from tpulbm.ops import window_step
 
 
-@pytest.fixture()
-def mosaic_lowering():
-    """Force interpret=None -> False so the export lowers real Mosaic
-    kernels from the CPU test process."""
-    prev = window_step.INTERPRET_DEFAULT_OVERRIDE
-    window_step.INTERPRET_DEFAULT_OVERRIDE = False
-    yield
-    window_step.INTERPRET_DEFAULT_OVERRIDE = prev
-
-
-def _export_tpu(maker, n=16, ny=96, nx=128, ndev=2):
-    import jax.export as je
-
+def _export_cuda(ny, nx, mesh, n=8):
     params = LBMParams(nx=nx, ny=ny, max_iters=n, reynolds_dim=10,
                        density=0.1, accel=0.005, omega=1.85)
     rng = np.random.RandomState(0)
     mask = rng.rand(ny, nx) < 0.05
     params = params.with_free_cells(ny * nx - int(mask.sum()))
-    mesh = get_mesh(n_devices=ndev)
-    run = maker(params, n, mesh)
+    run = make_runner(params, n, mesh)
     f, obst = shard_arrays(mesh, initial_state(params), jnp.asarray(mask))
-    return je.export(run, platforms=["tpu"])(f, obst).mlir_module()
+    exp = je.export(run, platforms=["cuda"])(f, obst)
+    assert exp.platforms == ("cuda",)
+    return exp.mlir_module()
 
 
 def _balanced(txt, i):
@@ -113,50 +88,42 @@ def _counts(region):
         "all_reduce": len(re.findall(r"all_reduce", region)),
         "all_gather": len(re.findall(r"all_gather", region)),
         "all_to_all": len(re.findall(r"all_to_all", region)),
-        "kernel": len(re.findall(r"tpu_custom_call", region)),
+        "custom_call": len(re.findall(r"custom_call", region)),
     }
 
 
-def test_ppermute_runner_loop_has_exactly_two_halo_permutes(mosaic_lowering):
-    txt = _export_tpu(functools.partial(R._make_kstep_runner, k=8))
-    loop = _counts(step_loop_region(txt))
-    assert loop["kernel"] >= 1  # the Mosaic K-step kernel is in the loop
-    # the two designed K-row halo slab exchanges per K-chunk, nothing else
-    assert loop["collective_permute"] == 2, loop
-    assert loop["all_reduce"] == loop["all_gather"] == 0, loop
-    # exactly ONE deferred psum in the whole program, outside the loop
-    assert _counts(txt)["all_reduce"] == 1
+# (id, ny, nx, mesh shape, permutes in the loop, psums after it)
+CASES = [
+    ("ring-1", 96, 128, (1,), 0, 0),
+    ("ring-2", 96, 128, (2,), 2, 1),
+    ("ring-4", 96, 128, (4,), 2, 1),
+    ("ring-8", 96, 128, (8,), 2, 1),
+    ("padded-2", 95, 100, (2,), 2, 1),
+    ("padded-3", 94, 128, (3,), 2, 1),
+    ("padded-4", 94, 128, (4,), 2, 1),
+    ("padded-8", 94, 128, (8,), 2, 1),
+    ("torus-2x2", 16, 128, (2, 2), 4, 2),
+    ("torus-2x4", 16, 128, (2, 4), 4, 2),
+    ("torus-4x2", 16, 128, (4, 2), 4, 2),
+]
 
 
 @pytest.mark.parametrize(
-    "maker", [R._make_rdma_runner, R._make_resident_rdma_runner],
-    ids=["kstep-rdma", "resident-rdma"],
+    "ny,nx,shape,loop_permutes,psums", [c[1:] for c in CASES],
+    ids=[c[0] for c in CASES],
 )
-def test_rdma_runner_loop_has_zero_xla_collectives(mosaic_lowering, maker):
-    txt = _export_tpu(maker)
+def test_step_loop_collectives(ny, nx, shape, loop_permutes, psums):
+    mesh = (get_mesh(n_devices=shape[0]) if len(shape) == 1
+            else get_mesh_2d(*shape))
+    txt = _export_cuda(ny, nx, mesh)
     loop = _counts(step_loop_region(txt))
-    assert loop["kernel"] >= 1  # the Mosaic RDMA kernel is in the loop
-    # ALL halo traffic is in-kernel remote DMA: no XLA collectives at all
-    assert loop["collective_permute"] == 0, loop
+    # the designed halo exchange per step (one row each way per sharded
+    # axis), no reduction inside the loop, and no hand-written kernel
+    assert loop["collective_permute"] == loop_permutes, loop
     assert loop["all_reduce"] == loop["all_gather"] == 0, loop
-    assert loop["all_to_all"] == 0, loop
+    assert loop["all_to_all"] == loop["custom_call"] == 0, loop
     mod = _counts(txt)
-    # outside the loop: the one-time obstacle-halo exchange (2 permutes)
-    # and the single deferred psum of the av series
-    assert mod["collective_permute"] == 2, mod
-    assert mod["all_reduce"] == 1, mod
-
-
-def test_fold_ring_loop_has_exactly_two_slab_permutes(mosaic_lowering):
-    """The fold ring's designed schedule (r5): per K-chunk, ONE band slab
-    forward (the shard-boundary fix input) + ONE fix-output slab backward —
-    the main kernel exchanges no state halo at all — and the single
-    deferred psum of the |u| series outside the loop."""
-    txt = _export_tpu(R._make_fold_ring_runner, ny=96, nx=2048)
-    loop = _counts(step_loop_region(txt))
-    # the scan body is a donor ping-pong PAIR: two K-chunks per iteration,
-    # each with (main + fix) Mosaic kernels and exactly two permutes
-    assert loop["kernel"] >= 4, loop
-    assert loop["collective_permute"] == 4, loop
-    assert loop["all_reduce"] == loop["all_gather"] == 0, loop
-    assert _counts(txt)["all_reduce"] == 1
+    # the whole program: the loop's permutes, and the deferred psum(s) of
+    # the |u| series after it (one per sharded mesh axis)
+    assert mod["collective_permute"] == loop_permutes, mod
+    assert mod["all_reduce"] == psums, mod

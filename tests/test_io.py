@@ -9,7 +9,9 @@ from tpulbm.io.obstacles import ObstacleFileError, read_obstacles, write_obstacl
 from tpulbm.io.params_file import ParamFileError, read_params
 from tpulbm.io.writers import write_av_vels, write_final_state
 
-DATA = "/root/repo/data"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+DATA = os.path.join(REPO, "data")
 
 
 def test_read_params_128():

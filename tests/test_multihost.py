@@ -15,6 +15,8 @@ import pytest
 
 from tpulbm.dist import multihost
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 def test_init_distributed_noop_single_process(monkeypatch):
     for var in ("TPULBM_COORDINATOR", "TPULBM_NUM_PROCS", "TPULBM_PROC_ID",
@@ -47,17 +49,17 @@ def test_two_process_cli_matches_single_process(tmp_path):
     final_state vs a single-process 8-device run; av series equal up to
     reduction order."""
     env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join(
-        ["/root/repo"] + env.get("PYTHONPATH", "").split(os.pathsep)
+        [REPO] + env.get("PYTHONPATH", "").split(os.pathsep)
     )
     deck = ["data/input_128x128.params", "data/obstacles_128x128.dat",
-            "--max-iters", "60", "--backend", "jnp"]
+            "--max-iters", "60"]
     mh = tmp_path / "mh"
     proc = subprocess.run(
         ["bash", "scripts/launch_multihost.sh", "--local-smoke", "2x4",
          *deck, "--out-dir", str(mh)],
-        capture_output=True, text=True, env=env, cwd="/root/repo",
+        capture_output=True, text=True, env=env, cwd=REPO,
         timeout=600,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -68,7 +70,7 @@ def test_two_process_cli_matches_single_process(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "tpulbm", *deck,
          "--device-count", "8", "--out-dir", str(sp)],
-        capture_output=True, text=True, env=env_sp, cwd="/root/repo",
+        capture_output=True, text=True, env=env_sp, cwd=REPO,
         timeout=600,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -89,12 +91,11 @@ def test_two_process_save_single_process_restore(tmp_path):
     answer. final_state is the byte-exact gate (as in the sibling tests);
     the av series matches up to reduction order."""
     env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join(
-        ["/root/repo"] + env.get("PYTHONPATH", "").split(os.pathsep)
+        [REPO] + env.get("PYTHONPATH", "").split(os.pathsep)
     )
-    deck = ["data/input_128x128.params", "data/obstacles_128x128.dat",
-            "--backend", "jnp"]
+    deck = ["data/input_128x128.params", "data/obstacles_128x128.dat"]
 
     ck = tmp_path / "ck"
     part1 = tmp_path / "part1"
@@ -103,7 +104,7 @@ def test_two_process_save_single_process_restore(tmp_path):
          *deck, "--max-iters", "30", "--out-dir", str(part1),
          "--ckpt-backend", "orbax", "--checkpoint-every", "30",
          "--checkpoint-dir", str(ck)],
-        capture_output=True, text=True, env=env, cwd="/root/repo",
+        capture_output=True, text=True, env=env, cwd=REPO,
         timeout=600,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -116,7 +117,7 @@ def test_two_process_save_single_process_restore(tmp_path):
         p = subprocess.run(
             [sys.executable, "-m", "tpulbm", *deck, "--device-count", "8",
              "--max-iters", "60", "--out-dir", str(outdir), *extra],
-            capture_output=True, text=True, env=env_sp, cwd="/root/repo",
+            capture_output=True, text=True, env=env_sp, cwd=REPO,
             timeout=600,
         )
         assert p.returncode == 0, p.stderr[-3000:]
@@ -141,18 +142,17 @@ def test_two_process_orbax_checkpoint_restore(tmp_path):
     shards), restart the group, resume to 60, and match an uninterrupted
     2-process run byte-for-byte."""
     env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join(
-        ["/root/repo"] + env.get("PYTHONPATH", "").split(os.pathsep)
+        [REPO] + env.get("PYTHONPATH", "").split(os.pathsep)
     )
-    deck = ["data/input_128x128.params", "data/obstacles_128x128.dat",
-            "--backend", "jnp"]
+    deck = ["data/input_128x128.params", "data/obstacles_128x128.dat"]
 
     def smoke(*extra):
         return subprocess.run(
             ["bash", "scripts/launch_multihost.sh", "--local-smoke", "2x4",
              *deck, *extra],
-            capture_output=True, text=True, env=env, cwd="/root/repo",
+            capture_output=True, text=True, env=env, cwd=REPO,
             timeout=600,
         )
 

@@ -1,7 +1,7 @@
 """Pad-to-divisible decomposition: any ny over any device count.
 
 The reference runs at any MPI size via its remainder-balanced split
-(d2q9-bgk.c:834-862). The TPU counterpart pads the grid to
+(d2q9-bgk.c:834-862). The static-shape counterpart pads the grid to
 rows_per_shard * n_devices with masked dead rows (SURVEY.md section 7) and
 must reproduce the single-device run — golden-prefix gated on the official
 128x128 deck at odd device counts, decomposition-invariance gated on
@@ -23,6 +23,8 @@ from tpulbm.dist.runner import make_runner
 from tpulbm.dist.sharding import padded_split
 from tpulbm.ops.step_jnp import run_steps
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 N_STEPS = 512
 
 
@@ -41,7 +43,7 @@ def test_golden_prefix_odd_device_counts(params_128, golden_av_vels_128, n_dev):
     must match the 1-device oracle."""
     params, mask = params_128
     mesh = get_mesh(n_devices=n_dev)
-    runner = make_runner(params, N_STEPS, mesh=mesh, backend="jnp")
+    runner = make_runner(params, N_STEPS, mesh=mesh)
     f, av = runner(initial_state(params), jnp.asarray(mask))
     av = np.asarray(av)
     diff_pcnt = 100.0 * np.abs(av - golden_av_vels_128) / golden_av_vels_128
@@ -72,30 +74,14 @@ def test_unaligned_matches_single_device(ny, nx, n_dev):
     mask = rng.rand(ny, nx) < 0.06
     params = params.with_free_cells(ny * nx - int(mask.sum()))
     f0 = initial_state(params)
-    f1, av1 = make_runner(params, 24, mesh=get_mesh(n_devices=1),
-                          backend="jnp")(jnp.array(f0), jnp.asarray(mask))
-    fn, avn = make_runner(params, 24, mesh=get_mesh(n_devices=n_dev),
-                          backend="jnp")(jnp.array(f0), jnp.asarray(mask))
+    f1, av1 = make_runner(params, 24, mesh=get_mesh(n_devices=1))(
+        jnp.array(f0), jnp.asarray(mask))
+    fn, avn = make_runner(params, 24, mesh=get_mesh(n_devices=n_dev))(
+        jnp.array(f0), jnp.asarray(mask))
     np.testing.assert_allclose(
         np.asarray(fn), np.asarray(f1), rtol=1e-6, atol=1e-9
     )
     np.testing.assert_allclose(np.asarray(avn), np.asarray(av1), rtol=1e-5)
-
-
-def test_explicit_pallas_backend_rejected_beyond_padding_gate():
-    """Round 3: multi-hop wrap slabs took the last row-padding gate down —
-    ny=130 over 8 devices (pad=62 > rows=16) now builds on backend='pallas'.
-    A shape beyond every Pallas tier (nx too narrow to lane-pad: the mirror
-    would wrap twice) still produces a clean error."""
-    params = LBMParams(nx=128, ny=130, max_iters=4, reynolds_dim=10,
-                       density=0.1, accel=0.005, omega=1.85).with_free_cells(1)
-    assert make_runner(params, 4, mesh=get_mesh(n_devices=8),
-                       backend="pallas") is not None
-    narrow = LBMParams(nx=64, ny=130, max_iters=4, reynolds_dim=10,
-                       density=0.1, accel=0.005,
-                       omega=1.85).with_free_cells(1)
-    with pytest.raises(ValueError, match="jnp padded path"):
-        make_runner(narrow, 4, mesh=get_mesh(n_devices=8), backend="pallas")
 
 
 def test_cli_unaligned_deck_device_count_invariant(tmp_path):
@@ -113,12 +99,12 @@ def test_cli_unaligned_deck_device_count_invariant(tmp_path):
             XLA_FLAGS="--xla_force_host_platform_device_count=8",
             JAX_PLATFORMS="cpu",
             PYTHONPATH=os.pathsep.join(
-                ["/root/repo"] + os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                [REPO] + os.environ.get("PYTHONPATH", "").split(os.pathsep)
             ),
         )
         proc = subprocess.run(
             [sys.executable, "-m", "tpulbm", ppath, opath,
-             "--device-count", str(n_dev), "--backend", "jnp",
+             "--device-count", str(n_dev),
              "--out-dir", str(out)],
             capture_output=True, text=True, env=env, timeout=600,
         )

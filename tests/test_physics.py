@@ -1,11 +1,14 @@
 """Physics correctness of the single-device jnp oracle."""
 
+import os
 import jax.numpy as jnp
 import numpy as np
 
 from tpulbm.core.state import initial_state
 from tpulbm.diag.observables import total_density
 from tpulbm.ops.step_jnp import accelerate, collide_stream, run_steps
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_golden_prefix_128(params_128, golden_av_vels_128):
@@ -110,6 +113,7 @@ import numpy as np
 from validate_f64 import run_f64, run_f64_jax
 from tpulbm.io.params_file import read_params
 from tpulbm.io.obstacles import read_obstacles
+
 p = read_params("data/input_128x128.params")
 obst, nf = read_obstacles("data/obstacles_128x128.dat", p.nx, p.ny)
 p = p.with_free_cells(nf)
@@ -122,9 +126,9 @@ assert av < 1e-12, av
 print("OK", state, av)
 """
     proc = subprocess.run(
-        [sys.executable, "-c", code], cwd="/root/repo",
+        [sys.executable, "-c", code], cwd=REPO,
         capture_output=True, text=True, timeout=600,
-        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
+        env={**os.environ, "JAX_PLATFORMS": "cpu"},
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.startswith("OK")

@@ -1,10 +1,11 @@
 """Scale demonstration: the SURVEY north-star configuration — a 4096x4096
 grid sharded over an 8-device mesh — compiles and steps correctly (virtual
-CPU mesh; the real-chip numbers live in BENCHMARKS.md)."""
+CPU mesh). Several 600 MB copies of the state make it a `slow` test."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from tpulbm.core.params import LBMParams
 from tpulbm.core.state import initial_state
@@ -14,6 +15,8 @@ from tpulbm.dist.runner import make_runner
 from tpulbm.dist.sharding import shard_arrays
 from tpulbm.tools.make_deck import box_obstacles
 
+pytestmark = pytest.mark.slow
+
 
 def test_4096_sharded_over_8_devices():
     ny = nx = 4096
@@ -22,7 +25,7 @@ def test_4096_sharded_over_8_devices():
     mask = box_obstacles(ny, nx)
     params = params.with_free_cells(ny * nx - int(mask.sum()))
     mesh = get_mesh(n_devices=8)
-    runner = make_runner(params, 2, mesh=mesh, backend="jnp")
+    runner = make_runner(params, 2, mesh=mesh)
     f, obst = shard_arrays(mesh, initial_state(params), jnp.asarray(mask))
     # state is genuinely sharded across the mesh
     assert len(f.sharding.device_set) == 8
@@ -49,11 +52,11 @@ def test_4096_sharded_matches_single_device_oracle():
 
     mesh1 = get_mesh(n_devices=1)
     f1, obst1 = shard_arrays(mesh1, initial_state(params), jnp.asarray(mask))
-    f1, av1 = make_runner(params, n_steps, mesh=mesh1, backend="jnp")(f1, obst1)
+    f1, av1 = make_runner(params, n_steps, mesh=mesh1)(f1, obst1)
 
     mesh8 = get_mesh(n_devices=8)
     f8, obst8 = shard_arrays(mesh8, initial_state(params), jnp.asarray(mask))
-    f8, av8 = make_runner(params, n_steps, mesh=mesh8, backend="jnp")(f8, obst8)
+    f8, av8 = make_runner(params, n_steps, mesh=mesh8)(f8, obst8)
 
     # psum tree order may differ from the 1-device sum → tolerance, not bitwise
     np.testing.assert_allclose(np.asarray(av8), np.asarray(av1), rtol=1e-5)

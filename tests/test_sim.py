@@ -7,15 +7,15 @@ import numpy as np
 from tpulbm.dist.mesh import get_mesh
 from tpulbm.sim.simulation import Simulation
 
-REPO = "/root/repo"
-DATA = "/root/repo/data"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+DATA = os.path.join(REPO, "data")
 PARAMS = os.path.join(DATA, "input_128x128.params")
 OBST = os.path.join(DATA, "obstacles_128x128.dat")
 
 
 def test_simulation_from_files_runs():
-    sim = Simulation.from_files(PARAMS, OBST, mesh=get_mesh(n_devices=4),
-                                backend="jnp")
+    sim = Simulation.from_files(PARAMS, OBST, mesh=get_mesh(n_devices=4))
     res = sim.run(n_steps=20)
     assert res.av_vels.shape == (20,)
     assert np.all(np.isfinite(res.av_vels))
@@ -24,8 +24,8 @@ def test_simulation_from_files_runs():
 
 def test_chunked_equals_single_run():
     mesh = get_mesh(n_devices=2)
-    a = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
-    b = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    a = Simulation.from_files(PARAMS, OBST, mesh=mesh)
+    b = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     ra = a.run(n_steps=30)
     rb = b.run(n_steps=30, chunk=7)
     assert np.array_equal(np.asarray(a.f), np.asarray(b.f))
@@ -34,15 +34,15 @@ def test_chunked_equals_single_run():
 
 def test_checkpoint_resume_bitwise(tmp_path):
     mesh = get_mesh(n_devices=2)
-    full = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    full = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     full.run(n_steps=40)
 
-    part = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    part = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     part.run(n_steps=25)
     ck = part.save_checkpoint(tmp_path)
     assert os.path.exists(ck)
 
-    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     resumed.restore_checkpoint(tmp_path)
     assert resumed.step_count == 25
     resumed.run(n_steps=15)
@@ -55,15 +55,15 @@ def test_checkpoint_resume_bitwise_orbax(tmp_path):
     """Orbax backend round trip: async save during the run, latest()
     discovery, bitwise resume — same contract as the npz backend."""
     mesh = get_mesh(n_devices=2)
-    full = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    full = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     full.run(n_steps=40)
 
-    part = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp",
+    part = Simulation.from_files(PARAMS, OBST, mesh=mesh,
                                  ckpt_backend="orbax")
     part.run(n_steps=25, checkpoint_every=25, checkpoint_dir=tmp_path)
     assert os.path.isdir(tmp_path / "ckpt_00000025.orbax")
 
-    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     resumed.restore_checkpoint(tmp_path)
     assert resumed.step_count == 25
     resumed.run(n_steps=15)
@@ -82,16 +82,16 @@ def test_checkpoint_elastic_across_device_counts(tmp_path):
     for bk in ("npz", "orbax"):
         ckdir = tmp_path / bk
         saver = Simulation.from_files(PARAMS, OBST, mesh=get_mesh(n_devices=8),
-                                      backend="jnp", ckpt_backend=bk)
+                                      ckpt_backend=bk)
         saver.run(n_steps=25)
         saver.save_checkpoint(ckdir)
 
         for n in (4, 1):
             full = Simulation.from_files(
-                PARAMS, OBST, mesh=get_mesh(n_devices=n), backend="jnp")
+                PARAMS, OBST, mesh=get_mesh(n_devices=n))
             full.run(n_steps=40)
             resumed = Simulation.from_files(
-                PARAMS, OBST, mesh=get_mesh(n_devices=n), backend="jnp")
+                PARAMS, OBST, mesh=get_mesh(n_devices=n))
             resumed.restore_checkpoint(ckdir)
             assert resumed.step_count == 25
             resumed.run(n_steps=15)
@@ -112,12 +112,12 @@ def test_orbax_restore_is_sharded(tmp_path):
     from jax.sharding import PartitionSpec as P
 
     mesh = get_mesh(n_devices=4)
-    sim = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp",
+    sim = Simulation.from_files(PARAMS, OBST, mesh=mesh,
                                 ckpt_backend="orbax")
     sim.run(n_steps=12)
     sim.save_checkpoint(tmp_path)
 
-    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     resumed.restore_checkpoint(tmp_path)
     f = resumed.f
     assert isinstance(f, jax.Array)
@@ -160,7 +160,7 @@ def test_at_most_two_runner_compiles_for_nondividing_cadence(
 
     monkeypatch.setattr(sim_mod, "make_runner", counting)
     mesh = get_mesh(n_devices=2)
-    sim = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    sim = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     sim.params = __import__("dataclasses").replace(sim.params, max_iters=100)
     sim.av_vels = np.zeros(100, dtype=np.float32)
     sim.run(checkpoint_every=30, checkpoint_dir=tmp_path)
@@ -176,11 +176,11 @@ def test_resume_mid_cadence_restores_checkpoint_cadence(tmp_path):
     chunk realigns so periodic checkpoints keep firing (previously they
     silently stopped until the end of the run)."""
     mesh = get_mesh(n_devices=2)
-    sim = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    sim = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     sim.run(n_steps=25)
     sim.save_checkpoint(tmp_path)
 
-    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     resumed.restore_checkpoint(tmp_path)
     resumed.run(n_steps=75, checkpoint_every=30, checkpoint_dir=tmp_path)
     for step in (30, 60, 90, 100):
@@ -196,7 +196,7 @@ def test_orbax_corrupt_checkpoint_raises(tmp_path):
     import pytest
 
     mesh = get_mesh(n_devices=4)
-    sim = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp",
+    sim = Simulation.from_files(PARAMS, OBST, mesh=mesh,
                                 ckpt_backend="orbax")
     sim.run(n_steps=8)
     ck = sim.save_checkpoint(tmp_path)
@@ -209,7 +209,7 @@ def test_orbax_corrupt_checkpoint_raises(tmp_path):
         fh.seek(10)
         fh.write(b"\xff" * 64)
 
-    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     with pytest.raises(Exception) as exc_info:
         resumed.restore_checkpoint(tmp_path)
     # the corruption must not be mistaken for a schema mismatch and
@@ -228,7 +228,7 @@ def test_orbax_schema_mismatch_downgrades_loudly(tmp_path, capsys):
     from tpulbm.core.params import LBMParams
 
     mesh = get_mesh(n_devices=4)
-    sim = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp",
+    sim = Simulation.from_files(PARAMS, OBST, mesh=mesh,
                                 ckpt_backend="orbax")
     sim.run(n_steps=8)
 
@@ -247,7 +247,7 @@ def test_orbax_schema_mismatch_downgrades_loudly(tmp_path, capsys):
     ckptr.wait_until_finished()
     ckptr.close()
 
-    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     resumed.restore_checkpoint(tmp_path)
     assert resumed.step_count == 8
     np.testing.assert_array_equal(np.asarray(resumed.f), np.asarray(sim.f))
@@ -260,7 +260,7 @@ def test_cli_end_to_end(tmp_path):
 
     out = tmp_path / "out"
     rc = main([
-        PARAMS, OBST, "--max-iters", "10", "--backend", "jnp",
+        PARAMS, OBST, "--max-iters", "10", 
         "--out-dir", str(out), "--device-count", "2",
     ])
     assert rc == 0
@@ -283,7 +283,7 @@ def test_checker_cli(tmp_path):
     from tpulbm.validation.check import main as check_main
 
     out = tmp_path / "o"
-    run_main([PARAMS, OBST, "--max-iters", "5", "--backend", "jnp",
+    run_main([PARAMS, OBST, "--max-iters", "5", 
               "--out-dir", str(out), "--device-count", "1"])
     fs, av = str(out / "final_state.dat"), str(out / "av_vels.dat")
     assert check_main([
@@ -337,7 +337,7 @@ def test_checker_npz_golden(tmp_path):
     from tpulbm.validation.check import main as check_main
 
     out = tmp_path / "o"
-    run_main([PARAMS, OBST, "--max-iters", "5", "--backend", "jnp",
+    run_main([PARAMS, OBST, "--max-iters", "5", 
               "--out-dir", str(out), "--device-count", "1"])
     fs, av = str(out / "final_state.dat"), str(out / "av_vels.dat")
     pressure = np.loadtxt(fs, usecols=[5]).reshape(128, 128)
@@ -383,7 +383,7 @@ def test_cli_debug_flag(tmp_path, capsys):
     from tpulbm.cli import main
 
     rc = main([PARAMS, OBST, "--max-iters", "4", "--chunk", "2",
-               "--backend", "jnp", "--device-count", "1",
+               "--device-count", "1",
                "--out-dir", str(tmp_path), "--debug"])
     assert rc == 0
     out = capsys.readouterr().out
@@ -402,8 +402,7 @@ def test_run_overrun_and_checkpoint_guards(tmp_path):
     import pytest
     from tpulbm.dist.mesh import get_mesh
 
-    sim = Simulation.from_files(PARAMS, OBST, mesh=get_mesh(n_devices=1),
-                                backend="jnp")
+    sim = Simulation.from_files(PARAMS, OBST, mesh=get_mesh(n_devices=1))
     with pytest.raises(ValueError, match="maxIters"):
         sim.run(n_steps=40001)
     with pytest.raises(ValueError, match="checkpoint_dir"):
@@ -416,11 +415,11 @@ def test_checkpoint_params_mismatch_rejected(tmp_path):
     import pytest
 
     mesh = get_mesh(n_devices=1)
-    a = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    a = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     a.run(n_steps=5)
     a.save_checkpoint(tmp_path)
 
-    b = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    b = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     b.params = dataclasses.replace(b.params, omega=1.4)
     with pytest.raises(ValueError, match="omega"):
         b.restore_checkpoint(tmp_path)
@@ -433,8 +432,7 @@ def test_divergence_detection():
 
     import pytest
 
-    sim = Simulation.from_files(PARAMS, OBST, mesh=get_mesh(n_devices=1),
-                                backend="jnp")
+    sim = Simulation.from_files(PARAMS, OBST, mesh=get_mesh(n_devices=1))
     sim.params = dataclasses.replace(sim.params, omega=2.5)  # unstable
     with pytest.raises(FloatingPointError, match="diverged"):
         sim.run(n_steps=3000, chunk=1000)
@@ -443,14 +441,14 @@ def test_divergence_detection():
 def test_async_checkpointing_during_run(tmp_path):
     """Checkpoints written by the async writer are loadable and resumable."""
     mesh = get_mesh(n_devices=1)
-    sim = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    sim = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     sim.run(n_steps=30, checkpoint_every=10, checkpoint_dir=tmp_path)
     import glob
 
     cks = sorted(glob.glob(str(tmp_path / "ckpt_*.npz")))
     assert len(cks) == 3  # steps 10, 20, 30
 
-    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh, backend="jnp")
+    resumed = Simulation.from_files(PARAMS, OBST, mesh=mesh)
     resumed.restore_checkpoint(tmp_path)
     assert resumed.step_count == 30
     import numpy as _np
@@ -463,8 +461,7 @@ def test_metrics_file_streaming(tmp_path):
     import json
 
     out = tmp_path / "metrics.jsonl"
-    sim = Simulation.from_files(PARAMS, OBST, mesh=get_mesh(n_devices=1),
-                                backend="jnp")
+    sim = Simulation.from_files(PARAMS, OBST, mesh=get_mesh(n_devices=1))
     sim.run(n_steps=20, chunk=5, metrics_file=str(out))
     lines = [json.loads(l) for l in out.read_text().splitlines()]
     assert [l["step"] for l in lines] == [5, 10, 15, 20]
@@ -480,7 +477,7 @@ def test_divergence_cli_clean_error(tmp_path, capsys):
 
     deck = tmp_path / "bad.params"
     deck.write_text("128\n128\n3000\n10\n0.1\n0.005\n2.5\n")  # omega=2.5
-    rc = main([str(deck), OBST, "--backend", "jnp", "--device-count", "1",
+    rc = main([str(deck), OBST, "--device-count", "1",
                "--chunk", "1000", "--out-dir", str(tmp_path)])
     assert rc == 1
     err = capsys.readouterr().err

@@ -2,6 +2,7 @@
 the tiled layout the reference's report declined. Two-phase halo exchange
 (columns, then rows of the extended block) carries the corner cells."""
 
+import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,6 +11,8 @@ from tpulbm.core.state import initial_state
 from tpulbm.dist.mesh import get_mesh_2d
 from tpulbm.dist.runner import make_runner
 from tpulbm.ops.step_jnp import run_steps
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("dy,dx", [(2, 4), (4, 2), (2, 2), (1, 8)])
@@ -27,8 +30,8 @@ def test_torus_matches_oracle(params_128, dy, dx):
 def test_torus_cli(tmp_path, capsys):
     from tpulbm.cli import main
 
-    rc = main(["/root/repo/data/input_128x128.params",
-               "/root/repo/data/obstacles_128x128.dat",
+    rc = main([os.path.join(REPO, "data", "input_128x128.params"),
+               os.path.join(REPO, "data", "obstacles_128x128.dat"),
                "--mesh-shape", "2x4", "--max-iters", "8",
                "--out-dir", str(tmp_path)])
     assert rc == 0
@@ -44,14 +47,3 @@ def test_torus_rejects_thin_columns():
                   density=0.1, accel=0.005, omega=1.85).with_free_cells(512)
     with pytest.raises(ValueError, match="column"):
         make_runner(p, 2, mesh=get_mesh_2d(1, 8))
-
-
-def test_torus_rejects_pallas_backend(params_128):
-    """pallas now has a torus tier (test_torus_kstep.py); shapes it can't
-    tile (w < 128 columns/shard here) still get a clean error, and
-    pallas-rdma stays 1-D-only."""
-    params, _ = params_128
-    with pytest.raises(ValueError, match="torus shard shape"):
-        make_runner(params, 2, mesh=get_mesh_2d(2, 4), backend="pallas")
-    with pytest.raises(ValueError, match="pallas-rdma"):
-        make_runner(params, 2, mesh=get_mesh_2d(2, 4), backend="pallas-rdma")

@@ -3,8 +3,8 @@
 The state is a single SoA tensor ``f`` of shape ``(9, ny, nx)`` float32 —
 channel-major so the lane (last) dimension is ``x``. This replaces the
 reference's AoS ``t_speed{float speeds[9]}`` grid (d2q9-bgk.c:95-98), which is
-a CPU-cache layout, not a feature; on TPU the SoA layout makes every channel a
-dense 2-D tile and x-streaming a lane rotate.
+a CPU-cache layout, not a feature; on an accelerator the SoA layout makes
+every channel a dense 2-D array whose x-streaming is a contiguous shift.
 """
 
 from __future__ import annotations

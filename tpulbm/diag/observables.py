@@ -1,6 +1,6 @@
 """Diagnostics over a (9, ny, nx) state.
 
-TPU-native equivalents of the reference diagnostics layer:
+Equivalents of the reference diagnostics layer:
 - av_velocity (d2q9-bgk.c:707-757): mean |u| over free cells.
 - calc_reynolds (d2q9-bgk.c:1002-1008): av_vel * reynolds_dim / viscosity.
 - total_density (d2q9-bgk.c:1011-1032): mass-conservation check.

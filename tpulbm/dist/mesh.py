@@ -1,9 +1,11 @@
 """Device-mesh construction.
 
 The reference's process topology is a 1-D ring of MPI ranks over grid rows
-(d2q9-bgk.c:244-247,834-862). The TPU-native equivalent is a 1-D
+(d2q9-bgk.c:244-247,834-862). The equivalent here is a 1-D
 ``jax.sharding.Mesh`` whose single axis shards the y-dimension; neighbour
-halo traffic rides ICI via ``lax.ppermute``.
+halo traffic is ``lax.ppermute``, which XLA lowers to collective permutes
+(NCCL on GPUs). The mesh follows the algorithm, a ring, not the wiring: the
+cards of one host are joined all to all.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ def get_mesh_2d(
 ) -> Mesh:
     """2-D torus mesh sharding both grid axes — the tiled decomposition the
     reference's report considered and declined for layout reasons
-    (report.odt "MPI Design"); natural on a TPU torus."""
+    (report.odt "MPI Design")."""
     if devices is None:
         devices = jax.devices()
     if dy * dx > len(devices):

@@ -3,9 +3,10 @@ construction, and host-0 output gathering.
 
 The reference's multi-node story is a PBS launcher + MPI environment knobs
 (mpi_submit:1-64, env.sh:4-9: 4 nodes x ppn=16, hostfile, async-progress).
-The TPU-native counterpart is ``jax.distributed``: one process per host, all
-devices visible as one global ``jax.devices()`` list, collectives riding ICI
-within a slice and DCN across hosts. The launcher equivalent is
+The counterpart here is ``jax.distributed``: one process per host, all
+devices visible as one global ``jax.devices()`` list, collectives riding the
+host's own links (NVLink between the cards of a host) within a host and the
+network (DCN) across hosts. The launcher equivalent is
 ``scripts/launch_multihost.sh``.
 
 Design notes:
@@ -42,9 +43,10 @@ def init_distributed(
 
     With no arguments, reads the standard env vars
     (``JAX_COORDINATOR_ADDRESS``/``TPULBM_COORDINATOR``, ``TPULBM_NUM_PROCS``,
-    ``TPULBM_PROC_ID``); on managed TPU pods ``jax.distributed.initialize()``
-    auto-detects everything and the env vars are unnecessary. No-ops when
-    single-process (num_processes == 1 or nothing configured).
+    ``TPULBM_PROC_ID``); on a cluster whose scheduler JAX recognises,
+    ``jax.distributed.initialize()`` detects everything by itself and the env
+    vars are unnecessary. No-ops when single-process (num_processes == 1 or
+    nothing configured).
     """
     coordinator_address = coordinator_address or os.environ.get(
         "TPULBM_COORDINATOR", os.environ.get("JAX_COORDINATOR_ADDRESS")

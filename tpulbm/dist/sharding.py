@@ -2,9 +2,10 @@
 
 The reference balances a remainder over ranks and forces the last rank to own
 at least 3 rows so the accelerated row stays interior (d2q9-bgk.c:834-862).
-The TPU design shards the y-axis evenly instead and requires divisibility —
+This design shards the y-axis evenly instead and requires divisibility —
 every shipped grid (128/256/1024/4096 rows) divides the natural mesh sizes —
-which keeps shapes static for XLA and makes `ppermute` halo indexing uniform.
+which keeps shapes static for XLA and makes `ppermute` halo indexing uniform;
+any other ``ny`` is padded to a divisible height (``padded_split``).
 ``decompose_rows`` still implements the reference's remainder-balanced split
 (including the >=3-rows-for-the-last-rank rule) for API parity and for tests
 that check equivalence of the two policies.
@@ -50,28 +51,18 @@ def decompose_rows(ny: int, n_ranks: int) -> Tuple[List[int], List[int]]:
 def padded_split(ny: int, n_devices: int) -> Tuple[int, int]:
     """(rows_per_shard, ny_pad) for the pad-to-divisible policy (SURVEY §7).
 
-    Any ny runs on any device count — the TPU counterpart of the reference's
-    any ``-np`` remainder-balanced split (d2q9-bgk.c:834-862) — by padding the
-    grid to ``rows_per_shard * n_devices`` rows with masked dead rows, keeping
-    every shard shape static and identical for XLA. Shards are at least 3 rows
+    Any ny runs on any device count — the static-shape counterpart of the
+    reference's any ``-np`` remainder-balanced split (d2q9-bgk.c:834-862) — by
+    padding the grid to ``rows_per_shard * n_devices`` rows with masked dead
+    rows, keeping every shard shape static and identical for XLA. Shards are at least 3 rows
     tall (same motivation as the reference's last-rank >=3-rows rule).
     """
     rows = max(3, -(-ny // n_devices))
     return rows, rows * n_devices
 
 
-def padded_split_aligned(ny: int, n_devices: int, align: int = 8) -> Tuple[int, int]:
-    """(rows_per_shard, ny_pad) with rows a multiple of ``align`` — the
-    variant the Pallas K-step kernels need (8-row DMA alignment / row
-    blocks). Padding is by periodic extension (rows ny..ny_pad mirror rows
-    0..pad), which keeps the padded evolution bitwise-exactly the torus
-    evolution — see dist/runner._make_kstep_runner(padded=True)."""
-    rows = max(align, -(-ny // (n_devices * align)) * align)
-    return rows, rows * n_devices
-
-
 def validate_even_split(ny: int, n_devices: int) -> int:
-    """Rows per device for the even split used on TPU; raises if invalid."""
+    """Rows per device for the even row split; raises if invalid."""
     if ny % n_devices != 0:
         raise ValueError(
             f"ny={ny} must divide evenly over {n_devices} devices "

@@ -6,8 +6,8 @@ collision and bounce-back, and the on-device |u| reduction. It reproduces the
 fused ``timestep`` + ``accelerate_flow`` pair of the reference
 (d2q9-bgk.c:442-704) as one pure function.
 
-The Pallas fast path (tpulbm.ops.pallas_step) and the sharded halo runner
-(tpulbm.dist.runner) are differential-tested against this module.
+The runners in tpulbm.dist.runner, which step local blocks with halo rows
+(tpulbm.ops.step_local), are differential-tested against this module.
 """
 
 from __future__ import annotations

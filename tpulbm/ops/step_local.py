@@ -1,10 +1,10 @@
 """Per-shard (local-block) step used by the sharded runner.
 
 Operates on a local row-block ``f_local`` of shape (9, H, nx) plus the two
-halo rows received from ring neighbours — the TPU-native counterpart of the
+halo rows received from ring neighbours — the counterpart of the
 reference's halo-row machinery (d2q9-bgk.c:295-366). The x-axis stays
-periodic inside the block (lane roll); the y-axis periodicity comes from the
-ring wrap-around of the halo exchange.
+periodic inside the block (a roll along x); the y-axis periodicity comes
+from the ring wrap-around of the halo exchange.
 """
 
 from __future__ import annotations
@@ -93,8 +93,8 @@ def local_step_jnp(
 ):
     """Full fused local step: accelerate -> pull -> collide/bounce-back.
 
-    Returns (f_local', tot_u_partial). The jnp fallback/oracle for the Pallas
-    kernel in tpulbm.ops.pallas_step.
+    Returns (f_local', tot_u_partial). This is the step the runners in
+    tpulbm.dist.runner scan; XLA fuses it.
     """
     f_local = accelerate_local(f_local, obstacles, accel_row, accel_w1, accel_w2)
     # Halos were captured before acceleration; that is safe because the

@@ -10,7 +10,7 @@ resume bitwise-identically at step k. Two storage backends:
   so it overlaps the next compute chunk. Host-gathered — fine single-host.
 - ``orbax``: an orbax-checkpoint directory per snapshot. The distribution
   state is saved as the (possibly sharded) jax array itself — on a
-  multi-host mesh every process writes only its own shards (the TPU-native
+  multi-host mesh every process writes only its own shards (the
   analog of the reference's rank-ordered append, d2q9-bgk.c:1049-1122) and
   the save is natively asynchronous.
 """
